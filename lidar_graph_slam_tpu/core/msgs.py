@@ -8,7 +8,7 @@ resolution + path -> ret). Here the three DDS processes collapse into one pipeli
 `KeyFrame` records, the back end consumes them, and checkpoints / multi-host shipping
 serialize `KeyFrameArray` losslessly to npz.
 
-Design notes (TPU-first): clouds are carried as fixed-capacity padded arrays + boolean
+Design notes: clouds are carried as fixed-capacity padded arrays + boolean
 masks — the shape contract every jitted consumer (loop-closure ICP, map assembly) relies
 on — rather than ragged PointCloud2 blobs. `header` becomes {stamp, frame_index}: there is
 no TF tree; frames are implicit (sensor-frame cloud + map-frame pose, matching what the

@@ -2,7 +2,7 @@
 
 The reference moves `sensor_msgs/PointCloud2` blobs between processes over DDS and into
 `pcl::PointCloud<pcl::PointXYZ>` (e.g. `points_prefiltering/src/points_prefiltering.cpp:65-87`).
-On TPU every per-frame array must have a static shape so XLA compiles each pipeline stage
+On the device every per-frame array has a static shape so XLA compiles each pipeline stage
 exactly once; a scan is therefore a `[capacity, 3]` float32 array plus a `[capacity]` validity
 mask. Invalid rows are parked far away (PAD_VALUE) so distance-based kernels (NN search, NDT
 voxel lookup) naturally ignore them even before masking.
@@ -15,14 +15,15 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 
 # Padding sentinel: far outside any realistic LiDAR range so padded rows never win a
 # nearest-neighbor query nor land in a real voxel.
 PAD_VALUE = 1.0e6
 
 
-@struct.dataclass
+@pytree_dataclass
 class PointCloud:
     """SoA masked cloud. `points[i]` valid iff `mask[i]`."""
 

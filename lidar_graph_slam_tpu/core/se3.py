@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group algebra on jnp arrays.
 
-TPU-native replacement for the reference's pose-conversion utility layer
+Replacement for the reference's pose-conversion utility layer
 (`lidar_graph_slam_utils/include/lidar_graph_slam_utils/lidar_graph_slam_utils.hpp:42-125`,
 which shuffles poses between geometry_msgs / Eigen Matrix4f / gtsam::Pose3 / tf2) and for the
 Eigen + GTSAM pose algebra used throughout the reference. Here there is a single canonical

@@ -1,4 +1,4 @@
-"""Scan prefiltering pipeline — TPU-native points_prefiltering node.
+"""Scan prefiltering pipeline — the points_prefiltering node as one device program.
 
 Reproduces the capability set of `points_prefiltering/src/points_prefiltering.cpp:65-87`:
   min-distance filter (`:102-112`) -> [optional crop box, dormant in reference `:73-74`]
@@ -53,8 +53,8 @@ def statistical_outlier_mask(
 
     Neighborhoods come from the sorted-grid sliding window (`window_mean_knn_distance`) —
     same-cell neighbors are consecutive after the cell-key sort, so the whole filter runs
-    with zero gathers (TPU gathers cost ~1 index per ~8ns; a 27-cell gather search here
-    would be ~100x slower). Points with < 2 window neighbors are outliers outright,
+    with zero gathers (a 27-cell gather search would issue 27 x bucket gather indices
+    per point). Points with < 2 window neighbors are outliers outright,
     matching SOR's intent for isolated LiDAR stray returns.
     """
     grid = neighbors.build_hash_grid(points, mask, cell_size)

@@ -5,7 +5,7 @@ keyframe at `graph_based_slam/src/graph_based_slam.cpp:361-374`, loop between-fa
 `:330-347`, estimates read back via `calculateEstimate` at `:379,419`). We match its
 *behavioral* contract — incremental insertion is cheap, loop closures trigger a global
 re-linearized solve, estimates equal the nonlinear least-squares optimum — with an algorithm
-chosen for TPU structure instead of the Bayes tree:
+chosen for batched device execution instead of the Bayes tree:
 
   * A pose graph from this pipeline is a **chain + L loop factors** (L small). The
     Gauss-Newton normal matrix is block-tridiagonal plus L rank-6 corrections.
@@ -13,19 +13,18 @@ chosen for TPU structure instead of the Bayes tree:
     `lax.scan` over 6x6 blocks — O(K) with tiny dense ops, no sparse bookkeeping.
   * Loop factors enter via the **Woodbury identity**: 6L extra right-hand sides through the
     same tridiagonal solve plus one small (6L x 6L) dense solve. Exact, no fill-in, and the
-    expensive part is batched matmuls — exactly what the MXU wants.
+    expensive part is batched matmuls.
   * Levenberg-Marquardt outer loop with masked accept/reject runs entirely inside one jitted
     program: fixed iteration count, no data-dependent Python control flow.
 
 All factors use the twist ordering (omega, v), so the reference's noise vector
 sigma^2 = [1e-6 x3, 1e-8, 1e-8, 1e-6] (`graph_based_slam.cpp:67-69`) maps verbatim.
 
-PRECISION (r04/r05): this jitted f32 solver is the ESCALATION FALLBACK tier. At
-automotive scale the f32 gradient at the optimum is storage-rounding noise (measured:
-scripts/diag_warm.py), and f64 linalg does not compile on this TPU stack (bench
-`device_f64` probe) — so the host float64 separator-direct tier (`graph/refine64.py`)
-produces the production poses and this LM descends only when f64 GN stalls
-(`escalate_f64`). Mirrors the reference's own split of f32 PCL registration + f64
+PRECISION: this jitted f32 solver is the ESCALATION FALLBACK tier. At automotive
+scale the f32 gradient at the optimum is storage-rounding noise (measured:
+scripts/diag_warm.py), so the host float64 separator-direct tier (`graph/refine64.py`,
+whose module docstring says why it runs on the host) produces the production poses and
+this LM descends only when f64 GN stalls (`escalate_f64`). Mirrors the reference's own split of f32 PCL registration + f64
 GTSAM optimization. Use `solve_incremental` (or `GraphBasedSLAM`, which wraps it with
 host-mirrored state) as the solve entry point; `optimize` alone converges only to the
 f32 floor.
@@ -37,12 +36,12 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from lidar_graph_slam_tpu.core import se3
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class PoseGraph:
     """Fixed-capacity factor-graph state (SoA over keyframes and loop factors)."""
 
@@ -101,7 +100,7 @@ def graph_add_keyframes_batch(g: PoseGraph, poses: jax.Array, odoms: jax.Array, 
     """Append the first `count` of a [B, 4, 4] keyframe batch in ONE dispatch.
 
     The host-side back end defers per-keyframe inserts and flushes them in batches
-    (per-dispatch host-link latency dominates the tiny insert itself); semantics are
+    (per-dispatch host overhead dominates the tiny insert itself); semantics are
     exactly `count` sequential `graph_add_keyframe` calls."""
     K = g.pose_mask.shape[0]
 
@@ -203,12 +202,12 @@ def _tridiag_solve_cr(D: jax.Array, U: jax.Array, B: jax.Array) -> jax.Array:
     B: [K, 6, M]. Returns x [K, 6, M]. K is padded internally to a power of two with
     decoupled identity blocks.
 
-    WHY: the sequential `lax.scan` elimination issues K tiny dependent 6x6 steps — on
-    TPU that is pure latency (measured ~160 ms at K=1024, ~680 ms at K=4096, i.e. the
-    whole pose-graph solve budget). Cyclic reduction eliminates every odd block in
+    WHY: the sequential `lax.scan` elimination issues K tiny dependent 6x6 steps — pure
+    launch latency on a GPU (measured on an H100 at 700 W: 176 ms at K=1024, 834 ms at
+    K=4096, 49 right-hand sides). Cyclic reduction eliminates every odd block in
     PARALLEL and recurses on the half-size even system: log2(K) levels of fully batched
-    6x6 solves/matmuls — exactly the shape the VPU/MXU wants. ~2x the FLOPs of the
-    scan, ~K/log2(K) less serial latency. Standard identities (L_i = U_{i-1}^T):
+    6x6 solves/matmuls (1.8 ms and 1.9 ms on the same card). ~2x the FLOPs of the scan,
+    ~K/log2(K) less serial latency. Standard identities (L_i = U_{i-1}^T):
 
       D'_j = D_2j − U_{2j−1}^T D_{2j−1}^{-1} U_{2j−1} − U_2j D_{2j+1}^{-1} U_2j^T
       U'_j = −U_2j D_{2j+1}^{-1} U_{2j+1}
@@ -278,32 +277,15 @@ def _tridiag_solve(D: jax.Array, U: jax.Array, B: jax.Array) -> jax.Array:
     D: [K, 6, 6] diagonal blocks; U: [K-1, 6, 6] super-diagonal blocks (H[k, k+1]);
     B: [K, 6, M] right-hand sides. Returns x [K, 6, M].
 
-    Dispatch (real-TPU measurements, optimize(15) wall): batched cyclic reduction
-    (`_tridiag_solve_cr`) for mid-size systems — ~3x faster than the sequential scan at
-    K ~ 1024 (52 vs 161 ms). Above K = 2048 CR's per-level temporaries blow past VMEM
-    ([*,6,6] tensors tile to (8,128), so spilled bytes are 21x the payload; 2.7 s at
-    K = 4096) — there the blocked substructuring solve (`_tridiag_solve_blocked`) keeps
-    every stage batched with O(sqrt(K)) serial latency and bounded temporaries.
+    Dispatch (measured on an H100 at 700 W, K in {256, 1024, 2048, 4096}, M in {49, 385}):
+    batched cyclic reduction (`_tridiag_solve_cr`) takes 1.1-2.2 ms at every size, the
+    blocked substructuring solve (`_tridiag_solve_blocked`) 12-18 ms and the sequential
+    scan 43-834 ms, so cyclic reduction serves every K >= 8; the scan is kept below that.
     """
     K = D.shape[0]
-    if 8 <= K < 2048:
+    if K >= 8:
         U_full = jnp.concatenate([U, jnp.zeros((1, 6, 6), D.dtype)], axis=0)
         return _tridiag_solve_cr(D, U_full, B)
-    if K >= 2048:
-        seg = 64
-        if K % seg:
-            # Pad to a seg multiple with decoupled identity blocks (zero coupling, zero
-            # rhs) — same trick as the f64 port `refine64._tridiag_solve64`. The engine's
-            # internal buckets are powers of two, but the public optimize() accepts any
-            # user capacity (e.g. max_keyframes=3000).
-            pad = seg - K % seg
-            eye = jnp.broadcast_to(jnp.eye(6, dtype=D.dtype), (pad, 6, 6))
-            D = jnp.concatenate([D, eye], axis=0)
-            U = jnp.concatenate([U, jnp.zeros((pad, 6, 6), D.dtype)], axis=0)
-            B = jnp.concatenate(
-                [B, jnp.zeros((pad,) + B.shape[1:], B.dtype)], axis=0)
-            return _tridiag_solve_blocked(D, U, B)[:K]
-        return _tridiag_solve_blocked(D, U, B)
     return _tridiag_solve_scan(D, U, B)
 
 
@@ -316,12 +298,11 @@ def _tridiag_solve_blocked(D: jax.Array, U: jax.Array, B: jax.Array, seg: int = 
     *separator*. All S interior systems (seg-1 blocks each) are eliminated by ONE
     batched scan (seg-1 steps of [S, 6, 6] ops — serial latency drops from K to
     ~seg + S ~ 2 sqrt(K) while every step stays batched), condensing onto the S-block
-    separator tridiagonal system, which the same machinery solves recursively (CR for
-    8 <= S < 2048). Temporaries are bounded by one [S, seg, 6, M+12] bundle streamed a
+    separator tridiagonal system, which `_tridiag_solve` solves. Temporaries are bounded by one [S, seg, 6, M+12] bundle streamed a
     scan-step at a time — no CR-style level pyramid to spill.
 
-    Requires K % seg == 0 and seg >= 3 (callers pad; `_tridiag_solve` guarantees this
-    for the power-of-two capacities the engine uses).
+    Requires K % seg == 0 and seg >= 3 (callers pad). Not on `_tridiag_solve`'s dispatch
+    path since cyclic reduction measured faster at every size (see there).
     """
     K = D.shape[0]
     M = B.shape[-1]
@@ -515,7 +496,7 @@ def _solve_step(g: PoseGraph, poses: jax.Array, damping: jax.Array) -> jax.Array
 # KITTI scale (~1e2 m) stored in f32 carry ~1e-5 m rounding, which info weights up to
 # 1e8 amplify into gradient noise — at the optimum LM proposes ~5e-4-norm garbage steps
 # that genuinely WORSEN the nonlinear cost and get rejected forever. GTSAM avoids this
-# by running in f64 (`graph_based_slam.hpp:38-46`); on TPU the honest f32 termination
+# by running in f64 (`graph_based_slam.hpp:38-46`); in f32 the honest termination
 # signal is "a sub-millimeter step was REJECTED at healthy damping": the optimizer is at
 # the floor, more iterations cannot help. These two knobs encode that signal.
 _STUCK_STEP_TOL = 1e-3   # rejected steps below this norm are floor noise, not progress
@@ -577,7 +558,7 @@ def optimize(
 def escalate_f64(view, device_lm, probe_iterations: int = 2,
                  refine_max_iterations: int = 12, tail_iterations: int = 6):
     """The engine's solve escalation ladder, shared by `solve_incremental` and
-    `GraphBasedSLAM._run_optimize` (one copy — ADVICE r04: the two hand-rolled ladders
+    `GraphBasedSLAM._run_optimize` (one copy: two hand-rolled ladders
     could silently drift).
 
       1. Warm probe: `probe_iterations` of host f64 GN. A WARM graph (already at its

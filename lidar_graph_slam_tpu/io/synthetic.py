@@ -108,8 +108,7 @@ def simulate_scan(
     survives, so surfaces hide what is behind them and the vertical field of view is
     bounded like a real spinning lidar. This is the parity instrument standing in for
     the reference's real-sensor validation (`/root/reference/README.md:31`): the round-2
-    occlusion-free sampler saw through walls and materially overstated registration ease
-    (VERDICT r02 item 4). `occlusion=False` keeps the old isotropic range-ball sampler
+    occlusion-free sampler saw through walls and materially overstated registration ease. `occlusion=False` keeps the old isotropic range-ball sampler
     for A/B diagnostics.
     """
     R, t = pose[:3, :3], pose[:3, 3]

@@ -5,7 +5,8 @@ correspondence search, fast_gicp's kd-tree k=20 covariance neighborhoods
 (`lidar_scan_matcher/src/lidar_scan_matcher.cpp:43,48`), `pcl::KdTreeFLANN::radiusSearch` in
 the dormant loop detector (`graph_based_slam/src/graph_based_slam.cpp:198-206`), and a
 hand-rolled recursive KDTree (`lidar_graph_slam_utils/lib/kd_tree.hpp:48-139`). Trees are
-hostile to TPUs (irregular control flow, scalar pointer chasing), so this module uses a
+hostile to wide data-parallel hardware (irregular control flow, scalar pointer chasing), so
+this module uses a
 sorted uniform grid instead:
 
   build:  key each point by its cell, sort once (on-chip XLA sort).
@@ -23,9 +24,9 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from lidar_graph_slam_tpu.core.pointcloud import PAD_VALUE, pad_points
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 from lidar_graph_slam_tpu.ops.voxel import (
     INVALID_KEY,
     TABLE_DIMS,
@@ -50,7 +51,7 @@ _27_OFFSETS = jnp.stack(
 ).reshape(27, 3)
 
 
-@struct.dataclass
+@pytree_dataclass
 class HashGrid:
     """Points sorted by packed cell key; cells resolved by dense-table lookup at query time."""
 
@@ -105,9 +106,8 @@ def _candidate_scan(grid: HashGrid, queries: jax.Array, offsets: jax.Array, buck
 
     Returns (d2 [Q, C*B] with +inf for invalid, cand_idx [Q, C*B] row indices).
 
-    TPU gather cost scales with the number of gather *indices* (~1.3e8/s on v5e), almost
-    independent of the bytes fetched per index — so everything a candidate needs (x, y, z,
-    cell key) is packed into one 4-float row and fetched with a single flat gather.
+    Everything a candidate needs (x, y, z, cell key) is packed into one 4-float row and
+    fetched with a single flat gather: one index per candidate instead of four.
     """
     n = grid.keys.shape[0]
     q = queries.shape[0]
@@ -154,7 +154,7 @@ def knn(grid: HashGrid, queries: jax.Array, k: int, bucket_cap: int = 32,
 
     Returns (idx [Q, k] into grid.points, dist2 [Q, k], valid [Q, k]). Padded query rows
     (at PAD_VALUE) return all-invalid results naturally. Selection is a two-operand lane
-    sort (lax.top_k at k>1 is ~500x slower than a full sort on current TPU lowerings).
+    sort over the candidate axis.
     """
     d2, cand_idx = _candidate_scan(grid, queries, _offsets_for(neighborhood), bucket_cap)
     d2_sorted, idx_sorted = jax.lax.sort((d2, cand_idx), num_keys=1, dimension=1)
@@ -243,7 +243,7 @@ def window_covariances(grid: HashGrid, window: int = 16):
 
 def radius_mask(positions: jax.Array, mask: jax.Array, query: jax.Array, radius) -> jax.Array:
     """Dense radius search over a small point set (keyframe positions, <= O(10^4)): the
-    TPU-appropriate stand-in for `pcl::KdTreeFLANN::radiusSearch` on keyframe centers
+    data-parallel stand-in for `pcl::KdTreeFLANN::radiusSearch` on keyframe centers
     (`graph_based_slam.cpp:198-206`). Plain vectorized distances beat any tree here."""
     d2 = jnp.sum((positions - query[None, :]) ** 2, axis=-1)
     return mask & (d2 < radius * radius)

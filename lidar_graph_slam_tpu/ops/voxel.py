@@ -1,13 +1,13 @@
 """Voxel-grid kernels: centroid downsampling and NDT voxel-Gaussian construction.
 
-TPU-native replacement for `pcl::VoxelGrid` (used by the prefilter at
+Data-parallel replacement for `pcl::VoxelGrid` (used by the prefilter at
 `points_prefiltering/src/points_prefiltering.cpp:114-121`, the loop-closure submap at
 `graph_based_slam/src/graph_based_slam.cpp:311-313`, and map export at `:487-494`) and for
 ndt_omp's target-voxel Gaussian build (per-voxel mean + covariance with eigenvalue
 regularization).
 
 Design: no pointer-chasing hash tables. Points are keyed by integer voxel coordinates packed
-into a single monotone int32, sorted on-chip (XLA's sort is fast on TPU), and reduced with
+into a single monotone int32, sorted on the device with XLA's sort, and reduced with
 `segment_sum` over sorted segment ids. Voxel lookup for NDT's DIRECT7 neighborhood is a
 vectorized binary search (`searchsorted`) over the sorted key array — O(log V) per query with
 zero divergence, instead of a kd-tree walk.
@@ -23,9 +23,9 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from lidar_graph_slam_tpu.core.pointcloud import PAD_VALUE, pad_points
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 
 _BITS_X, _BITS_Y, _BITS_Z = 11, 11, 8
 _NX, _NY, _NZ = 1 << _BITS_X, 1 << _BITS_Y, 1 << _BITS_Z
@@ -33,7 +33,8 @@ INVALID_KEY = jnp.iinfo(jnp.int32).max
 
 # Dense lookup-table dims (cells): direct 3-D indexing replaces binary search on the hot
 # path. (256, 256, 64) cells cover 512 m x 512 m x 128 m at NDT resolution 2.0 and cost
-# 16 MB of int32 HBM — a bargain against per-query log(V) gather chains on TPU.
+# 16 MB of int32 device memory, in exchange for one gather per query instead of a
+# log(V)-step binary-search chain.
 TABLE_DIMS = (256, 256, 64)
 
 
@@ -97,7 +98,7 @@ def min_corner(points: jax.Array, mask: jax.Array) -> jax.Array:
     return jnp.min(jnp.where(mask[:, None], points, PAD_VALUE), axis=0)
 
 
-@struct.dataclass
+@pytree_dataclass
 class VoxelGrid:
     """Centroid-downsample result (pcl::VoxelGrid semantics: one centroid per occupied voxel)."""
 
@@ -157,7 +158,7 @@ def voxel_downsample(points: jax.Array, mask: jax.Array, leaf: jax.Array, capaci
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class NdtVoxelMap:
     """Sorted voxel-Gaussian map for NDT registration (ndt_omp's TargetGrid equivalent).
 
@@ -176,20 +177,19 @@ class NdtVoxelMap:
     table: jax.Array       # [prod(TABLE_DIMS)] int32 dense cell -> voxel row (-1 empty)
     packed: jax.Array      # [capacity, 16] f32: mean(3) | inv_cov row-major(9) | valid | pad
                            # one contiguous row-gather feeds the whole align iteration
-                           # (gather cost on TPU scales with index count, not bytes/row)
+                           # (one index per neighbor instead of three)
 
 
 def _eigh3x3(A: jax.Array):
     """Batched symmetric 3x3 eigendecomposition by fixed-sweep cyclic Jacobi,
     fully unrolled to ELEMENTWISE arithmetic on the 6 unique entries.
 
-    `jnp.linalg.eigh`'s generic lowering is built for large matrices; on batched 3x3
-    inputs it is catastrophically slow on TPU (~100 ms for the 98k-voxel submap
-    rebuild — the entire rebuild budget). Batched 3x3 matmul formulations are little
-    better (tiny contractions pad horribly onto the MXU). Here each Jacobi rotation is
-    ~20 vector ops over the batch axis — pure VPU work. 6 sweeps (18 rotations) drive
-    the off-diagonal mass to f32 roundoff (Jacobi converges quadratically; 3x3 needs
-    3-4 sweeps). Returns (w [..., 3] ascending, V [..., 3, 3]) with eigenvector
+    Each Jacobi rotation is ~20 elementwise ops over the batch axis, which XLA fuses
+    into one pass. Measured on an H100 at 700 W against `jnp.linalg.eigh` (cuSOLVER's
+    batched solver): 0.11 vs 0.97 ms on 65,536 matrices, and 1.6-1.8 vs 1.9-2.1 ms for
+    the whole keyframe `insert_and_rebuild` on a full 20 x 32,768 ring. 6 sweeps (18
+    rotations) drive the off-diagonal mass to f32 roundoff (Jacobi converges
+    quadratically; 3x3 needs 3-4 sweeps). Returns (w [..., 3] ascending, V [..., 3, 3]) with eigenvector
     COLUMNS, matching `jnp.linalg.eigh`'s convention.
     """
     dtype = A.dtype
@@ -457,8 +457,7 @@ def lookup_direct7(vmap: NdtVoxelMap, query_points: jax.Array):
     idx = jnp.concatenate([vmap.table, jnp.full((1,), -1, jnp.int32)])[flat.reshape(-1)]
     hit = (idx >= 0) & in_range.reshape(-1)
     idx = jnp.maximum(idx, 0)
-    # One contiguous row-gather for mean+inv_cov+valid (index count, not row width,
-    # dominates TPU gather cost).
+    # One contiguous row-gather for mean+inv_cov+valid.
     rows = vmap.packed[idx]                                            # [Q*7, 16]
     means = rows[:, 0:3].reshape(q, 7, 3)
     icovs = rows[:, 3:12].reshape(q, 7, 3, 3)

@@ -7,15 +7,15 @@ BASELINE.json plan:
   * **Batched registration** — loop-candidate verification and multi-sequence odometry are
     embarrassingly parallel over (source, target) pairs: `vmap` inside, mesh-sharded
     batch axis outside. Replaces nothing in the reference (it verifies one candidate per
-    1 Hz tick); this is capability the TPU design adds.
+    1 Hz tick); this is capability the data-parallel design adds.
   * **Distributed pose-graph linearization** — each device linearizes its shard of the
     odometry chain factors (the O(K) SE(3) log/Jacobian work), contributes its blocks of
-    the block-tridiagonal system, and the assembled system is `psum`-reduced over ICI;
+    the block-tridiagonal system, and the assembled system is `psum`-reduced over the mesh;
     the cheap O(K) tridiagonal solve then runs replicated. Loop factors are linearized on
     device 0's shard (L is tiny). This is the collective layout stage for the round-2
     Schur-complement submap elimination.
 
-Everything here runs identically on a real pod slice and on the 8-virtual-device CPU mesh
+Everything here runs identically on a multi-GPU host and on the 8-virtual-device CPU mesh
 used in CI (`tests/conftest.py`).
 """
 

@@ -5,7 +5,7 @@ BASELINE.json configs[3] ("multi-sequence batch: sharded keyframes, distributed 
 pays a host round trip per frame; here the *entire* front end — align, keyframe trigger,
 submap-ring update, NDT map rebuild — runs as `lax.scan` over frames with a leading batch
 axis vmapped over sequences and sharded across the device mesh. Zero host syncs per frame:
-the TPU-native answer to "run the front end on 4 KITTI sequences at once".
+the data-parallel answer to "run the front end on 4 KITTI sequences at once".
 
 Data-dependent keyframing becomes masked state updates (SURVEY.md §7 "hard parts"): every
 frame computes the would-be ring insert and applies it behind the displacement trigger.
@@ -18,17 +18,17 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from lidar_graph_slam_tpu.core import se3
 from lidar_graph_slam_tpu.core.config import ScanMatcherConfig
 from lidar_graph_slam_tpu.core.pointcloud import PAD_VALUE
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 from lidar_graph_slam_tpu.ops.voxel import build_ndt_map
 from lidar_graph_slam_tpu.registration.ndt import ndt_align
 
 
-@struct.dataclass
+@pytree_dataclass
 class BatchFrontState:
     pose: jax.Array          # [4, 4]
     last_motion: jax.Array   # [4, 4]
@@ -177,8 +177,7 @@ def _batched_loop_attempts(backs, due, mesh, verify_cache):
     Each due sequence's detection + host input builds run through the same
     `GraphBasedSLAM._build_verify_inputs` the live pipeline uses; the iterative
     verifications then run as ONE device program with the batch axis spanning
-    sequences x candidates, sharded over the mesh (the back-half distribution VERDICT
-    r04 item 7 asked for — previously each sequence dispatched and solved alone).
+    sequences x candidates, sharded over the mesh (previously each sequence dispatched and solved alone).
     Sequences are independent, so batching changes nothing semantically. Every
     sequence that accepts a factor is then solved in `_solve_block_diagonal` — B
     independent graphs as one block-diagonal f64 system."""

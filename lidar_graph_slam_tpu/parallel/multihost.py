@@ -1,15 +1,15 @@
 """Multi-host scaffolding: process initialization, host-spanning meshes, and a
 host-sharded keyframe store.
 
-This is the TPU-native replacement for the reference's multi-process DDS middleware
+This is the engine's replacement for the reference's multi-process DDS middleware
 (SURVEY.md §5.8): where ROS 2 wires three OS processes with QoS'd pub/sub topics
 (`lidar_scan_matcher/src/lidar_scan_matcher.cpp:102-106`, transient-local map topics,
 `graph_based_slam/src/graph_based_slam.cpp:45-46`), a multi-host deployment of this
 engine is N identical SPMD processes:
 
   * `initialize_from_env()` — `jax.distributed.initialize` from `LGS_*` environment
-    variables; after it, `jax.devices()` spans every host and collectives ride ICI
-    within a slice / DCN across slices.
+    variables; after it, `jax.devices()` spans every host and collectives ride the
+    device interconnect within a host and the network across hosts.
   * `make_global_mesh()` — one mesh over all global devices; every mesh-parallel
     component in this package (`parallel/schur.py`, `parallel/distributed.py`,
     `GraphBasedSLAM(mesh=...)`) runs on it unchanged — the BASELINE.json configs[4]
@@ -19,10 +19,11 @@ engine is N identical SPMD processes:
     (the big payload stays host-local, like the reference's per-node
     `key_frame_array_` copies, `graph_based_slam.hpp:122-123`); poses/metadata are
     tiny and replicate. Cross-host submap assembly is one padded `process_allgather`
-    at the DCN boundary — the only bulk cross-host transfer in the design.
+    at the cross-host boundary — the only bulk cross-host transfer in the design.
 
 Exercised without hardware by tests/test_multihost.py: two local processes, two virtual
-CPU devices each, Gloo collectives — the same code path a pod-slice deployment takes.
+CPU devices each, Gloo collectives — the same code path a multi-host deployment takes.
+Not yet run across hosts with accelerators (ROADMAP).
 """
 
 from __future__ import annotations
@@ -89,7 +90,7 @@ def replicate_to_mesh(tree, mesh):
 
 def fetch_replicated(x, mesh) -> np.ndarray:
     """Read a global array back to host numpy on every process (all-gather if it was
-    sharded). The host-side mirror refresh of `GraphBasedSLAM` at the DCN boundary."""
+    sharded). The host-side mirror refresh of `GraphBasedSLAM` at the cross-host boundary."""
     import jax
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -103,7 +104,7 @@ class HostShardedKeyframeStore:
     Ownership is round-robin over process ids (balances a live keyframe stream without
     coordination). Every process calls `add` for every keyframe — non-owners record
     only the metadata. `assemble_submap` returns the map-frame concat of a keyframe
-    range, fetching remote clouds via one padded `process_allgather` (DCN boundary);
+    range, fetching remote clouds via one padded `process_allgather` (cross-host boundary);
     in single-process mode it degrades to a plain local concat.
     """
 
@@ -165,10 +166,10 @@ class HostShardedKeyframeStore:
         else:
             from jax.experimental import multihost_utils
 
-            # Two-phase gather (VERDICT r03 weak 7: a fixed [n, pad_points, 3] block per
+            # Two-phase gather (a fixed [n, pad_points, 3] block per
             # host shipped ~8 MB x n_hosts per loop attempt regardless of occupancy):
             # first the tiny count vector, then blocks padded only to the WINDOW MAX —
-            # DCN bytes now track the actual clouds.
+            # cross-host bytes now track the actual clouds.
             counts = np.asarray(multihost_utils.process_allgather(local_count))
             pad_to = int(counts.max()) if counts.size else 0
         local_block = np.zeros((len(ids), max(pad_to, 1), 3), np.float32)

@@ -1,7 +1,7 @@
 """Distributed block-tridiagonal solve via Schur-complement domain decomposition.
 
-The city-scale target (BASELINE.json configs[4]: "submap-partitioned graph, Schur reduction
-over ICI") needs the pose-graph normal system solved across devices, not just linearized
+The city-scale target (BASELINE.json configs[4]: "submap-partitioned graph, Schur
+reduction") needs the pose-graph normal system solved across devices, not just linearized
 across them. The chain's block-tridiagonal structure decomposes cleanly:
 
   * the K poses are split into `n_devices` contiguous segments; the last pose of each
@@ -12,8 +12,8 @@ across them. The chain's block-tridiagonal structure decomposes cleanly:
     device) which is psum-reduced over the mesh, solved replicated, and broadcast back;
   * devices back-substitute their interiors locally.
 
-One psum of O(n_devices * 6 * 6) blocks is the only collective — the Schur reduction rides
-ICI. Loop factors compose on top through the same Woodbury identity as the single-chip
+One psum of O(n_devices * 6 * 6) blocks is the only collective — the Schur reduction.
+Loop factors compose on top through the same Woodbury identity as the single-chip
 solver (`graph/solver.py`), with their 6L extra right-hand sides flowing through this
 distributed solve unchanged.
 """
@@ -142,7 +142,7 @@ def _schur_tridiag_solve_jit(mesh: Mesh, D_blocks, U_blocks, B):
 # with an explicit sharded hand-off. Fusing them into one jit miscompiles on the
 # virtual-device CPU backend (deterministic large errors in the shard_map output;
 # assembly outputs verified bit-identical, and the same solve on materialized inputs
-# is exact). Two dispatches cost one HBM round trip of the assembled blocks — noise
+# is exact). Two dispatches cost one device-memory round trip of the assembled blocks — noise
 # next to the solve itself.
 @jax.jit
 def _schur_assemble(g: gsolver.PoseGraph, damping):

@@ -2,7 +2,8 @@
 
 Replaces `ros2 launch lidar_graph_slam lidar_graph_slam.launch.xml` + the `/save_map`
 service call (`README.md:22-28` of the reference) with one command producing trajectory
-files (TUM + KITTI), the map PCD, and a metrics JSON.
+files (TUM + KITTI), the map PCD, and a metrics JSON. The bird's-eye `map.png` is drawn
+when matplotlib is installed and skipped (one line on stderr) when it is not.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(prog="tpu-slam", description="TPU-native LiDAR graph SLAM")
+    ap = argparse.ArgumentParser(prog="lidar-slam", description="LiDAR graph SLAM in JAX")
     ap.add_argument("--dataset", choices=["synthetic", "kitti"], default="synthetic")
     ap.add_argument("--kitti-root", default=os.environ.get("KITTI_ROOT", "/data/kitti"))
     ap.add_argument("--sequence", default="00")
@@ -48,13 +49,13 @@ def main(argv=None) -> int:
         from lidar_graph_slam_tpu.parallel.multihost import initialize_from_env
 
         if not initialize_from_env():
-            print("[tpu-slam] --multihost: no LGS_* coordinator env, "
+            print("[lidar-slam] --multihost: no LGS_* coordinator env, "
                   "running single-process")
         else:
             import jax as _jax
 
             is_primary = _jax.process_index() == 0
-            print(f"[tpu-slam] multihost: process {_jax.process_index()}/"
+            print(f"[lidar-slam] multihost: process {_jax.process_index()}/"
                   f"{_jax.process_count()}")
             if not is_primary:
                 # Every process executes the full SPMD run (map assembly is a
@@ -115,7 +116,7 @@ def main(argv=None) -> int:
                     ],
                 )
             if args.progress_every and (i + 1) % args.progress_every == 0:
-                print(f"[tpu-slam] frame {i + 1}, keyframes={pipe.back.n_keyframes}, "
+                print(f"[lidar-slam] frame {i + 1}, keyframes={pipe.back.n_keyframes}, "
                       f"loops={sum(1 for l in pipe.back.loop_log if l['accepted'])}")
         result = pipe.result()
     else:
@@ -125,28 +126,32 @@ def main(argv=None) -> int:
     write_tum_trajectory(os.path.join(args.output, "keyframes_tum.txt"), result.keyframe_poses)
     pipe.save_map(os.path.join(args.output, "map.pcd"), args.map_resolution)
 
-    # Bird's-eye render (the rviz stand-in).
-    from lidar_graph_slam_tpu.utils.viz import render_run
+    # Bird's-eye render (the rviz stand-in), an optional host output.
+    from lidar_graph_slam_tpu.utils.viz import matplotlib_available, render_run
 
-    gt_for_plot = None
-    if gt_all is not None:
-        T0_inv_p = np.linalg.inv(gt_all[0])
-        gt_for_plot = np.stack(
-            [(T0_inv_p @ p).astype(np.float32) for p in gt_all[: result.odometry_poses.shape[0]]]
+    if not matplotlib_available():
+        print("[lidar-slam] map.png skipped: matplotlib is not installed", file=sys.stderr)
+    else:
+        gt_for_plot = None
+        if gt_all is not None:
+            T0_inv_p = np.linalg.inv(gt_all[0])
+            gt_for_plot = np.stack([
+                (T0_inv_p @ p).astype(np.float32)
+                for p in gt_all[: result.odometry_poses.shape[0]]
+            ])
+        render_run(
+            os.path.join(args.output, "map.png"),
+            pipe.back.assemble_map(max(args.map_resolution, 0.3)),
+            result.odometry_poses,
+            result.keyframe_poses,
+            loop_pairs=[(l["latest"], l["candidate"]) for l in result.loop_log if l["accepted"]],
+            rejected_pairs=[
+                (l["latest"], l["candidate"])
+                for l in result.loop_log
+                if not l["accepted"] and not l.get("overflow") and l["candidate"] >= 0
+            ],
+            gt_poses=gt_for_plot,
         )
-    render_run(
-        os.path.join(args.output, "map.png"),
-        pipe.back.assemble_map(max(args.map_resolution, 0.3)),
-        result.odometry_poses,
-        result.keyframe_poses,
-        loop_pairs=[(l["latest"], l["candidate"]) for l in result.loop_log if l["accepted"]],
-        rejected_pairs=[
-            (l["latest"], l["candidate"])
-            for l in result.loop_log
-            if not l["accepted"] and not l.get("overflow") and l["candidate"] >= 0
-        ],
-        gt_poses=gt_for_plot,
-    )
 
     summary = {
         "frames": int(result.odometry_poses.shape[0]),

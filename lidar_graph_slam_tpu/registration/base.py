@@ -21,12 +21,12 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from lidar_graph_slam_tpu.core import se3
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 
 
-@struct.dataclass
+@pytree_dataclass
 class RegistrationResult:
     transform: jax.Array   # [4, 4] final source->target transform
     converged: jax.Array   # bool — iteration delta dropped below epsilon
@@ -56,12 +56,36 @@ def accumulate_normal_equations(J: jax.Array, W: jax.Array, e: jax.Array, weight
     """Accumulate H = sum w J^T W J and g = sum w J^T W e over the leading axes.
 
     J: [..., 3, 6], W: [..., 3, 3] (per-residual metric), e: [..., 3], weight: [...].
-    Contracted with einsum so XLA maps the reductions onto the MXU.
+    Contracted with einsum so XLA fuses the reductions into one pass.
     """
     WJ = jnp.einsum("...ij,...jk->...ik", W, J)
     H = jnp.einsum("...ji,...jk,...->ik", J, WJ, weight)
     g = jnp.einsum("...ji,...jk,...k,...->i", J, W, e, weight)
     return H, g
+
+
+def ndt_accumulate_xla(e, icovs, p, hit, d2, w_scale):
+    """Weighted 6x6 normal-equation accumulation over correspondences — the reduction at
+    the core of every NDT/GICP Gauss-Newton iteration (the reference's
+    `registration_->align` hot loop, `lidar_scan_matcher.cpp:162-172`), as plain XLA.
+
+    With the analytic blocks of J = [-hat(p) | I] and P = hat(p):
+
+        H_ww = -P W P,  H_wv = P W,  H_vv = W,  g_w = p x (W e),  g_v = W e
+
+    summed over correspondences with weight w = w_scale * exp(-0.5 d2 * e^T W e) * hit.
+
+    e:     [K, 3] residuals (p - mean) per correspondence
+    icovs: [K, 3, 3]
+    p:     [K, 3] transformed points (Jacobian anchor)
+    hit:   [K] bool
+    Returns (H [6,6], g [6], sum_w scalar, n_hit scalar).
+    """
+    md2 = jnp.einsum("ki,kij,kj->k", e, icovs, e)
+    w = jnp.where(hit, w_scale * jnp.exp(-0.5 * d2 * md2), 0.0)
+    J = point_jacobian_blocks(p)
+    H, g = accumulate_normal_equations(J, icovs, e, w)
+    return H, g, jnp.sum(w), jnp.sum(hit.astype(jnp.float32))
 
 
 def solve_damped(H: jax.Array, g: jax.Array, damping: jax.Array) -> jax.Array:

@@ -3,13 +3,13 @@
 The reference's own roadmap lists "Scan Matching with FPFH" as a TODO (`README.md:33-39`);
 its loop verifier instead relies on a 30 m ICP correspondence distance to survive large
 drift (`graph_based_slam/src/graph_based_slam.cpp:142-151`). This module supplies the
-missing capability TPU-first:
+missing capability, data-parallel throughout:
 
   * Normals and FPFH neighborhoods come from the engine's sorted-grid kNN
     (`ops/neighbors.py`) — no kd-trees.
-  * The 33-bin FPFH histograms are built with one-hot scatter-free binning (vector selects,
-    VPU-friendly) and neighbor gathers over fixed [Q, k] index arrays.
-  * Feature matching is one [Q, M] squared-distance matrix via matmul — MXU work.
+  * The 33-bin FPFH histograms are built with one-hot scatter-free binning (elementwise
+    selects) and neighbor gathers over fixed [Q, k] index arrays.
+  * Feature matching is one [Q, M] squared-distance matrix via matmul.
   * RANSAC is not a sequential loop: H hypotheses are drawn, solved (batched 3-point
     Kabsch via SVD), edge-length-checked, and inlier-scored *simultaneously* with vmapped
     dense math, then the winner is refined by masked inlier Kabsch. Deterministic
@@ -73,7 +73,7 @@ def _bin_index(x: jax.Array, lo: float, hi: float, bins: int) -> jax.Array:
 def _histogram(bin_idx: jax.Array, weight: jax.Array, bins: int) -> jax.Array:
     """Weighted histogram over the last axis: bin_idx/weight [Q, k] -> [Q, bins].
 
-    One-hot + matmul-free accumulation (comparisons and masked sums on the VPU)."""
+    One-hot + matmul-free accumulation (comparisons and masked sums)."""
     edges = jnp.arange(bins, dtype=jnp.int32)
     onehot = (bin_idx[..., None] == edges).astype(weight.dtype)  # [Q, k, bins]
     return jnp.sum(onehot * weight[..., None], axis=-2)
@@ -156,7 +156,7 @@ def match_features(f_src, src_valid, f_tgt, tgt_valid, ratio: float = 0.85):
     """Mutual-nearest correspondence in feature space with a Lowe ratio test.
 
     Returns (match_idx [Q] into target rows, match_ok [Q]). The [Q, M] distance matrix is
-    one matmul — MXU-shaped by construction. The ratio test (best / second-best feature
+    one matmul. The ratio test (best / second-best feature
     distance < `ratio`) rejects ambiguous matches from repeated structure (ground planes,
     parallel walls) — without it the inlier fraction collapses on planar-heavy scenes.
     """

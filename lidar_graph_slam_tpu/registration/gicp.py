@@ -5,7 +5,7 @@ optional matchers, factory at `lidar_scan_matcher/src/lidar_scan_matcher.cpp:37-
 per-point covariances from k = `correspondence_randomness` (20) nearest neighbors
 (`:43,48`), correspondence gating by max distance (`:51`), plane-to-plane Mahalanobis cost.
 
-TPU design: covariance estimation is a batched grid-kNN gather + one einsum per cloud (done
+Design: covariance estimation is a batched grid-kNN gather + one einsum per cloud (done
 once, not per iteration), regularized fast_gicp-style by snapping eigenvalues to (1, 1, 1e-3)
 — every surface patch is treated as a plane with fixed conditioning. The per-iteration
 combined metric M = (C_q + R C_p R^T)^{-1} is a closed-form batched 3x3 inverse; normal
@@ -18,17 +18,20 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from lidar_graph_slam_tpu.core import se3
+from lidar_graph_slam_tpu.core.struct import pytree_dataclass
 from lidar_graph_slam_tpu.ops.neighbors import (
     HashGrid,
     build_hash_grid,
     nearest,
     window_covariances,
 )
-from lidar_graph_slam_tpu.ops import pallas_kernels
-from lidar_graph_slam_tpu.registration.base import RegistrationResult, solve_damped
+from lidar_graph_slam_tpu.registration.base import (
+    RegistrationResult,
+    ndt_accumulate_xla,
+    solve_damped,
+)
 
 
 def _inv3x3(A: jax.Array) -> jax.Array:
@@ -90,7 +93,7 @@ def estimate_covariances(
     return covs, ok & mask
 
 
-@struct.dataclass
+@pytree_dataclass
 class GicpTarget:
     """Pre-built GICP target: NN grid + plane-regularized covariances (sorted order)."""
 
@@ -165,7 +168,7 @@ def gicp_align(
         e = p - q
         # Same accumulation as NDT: with d2 = 0 the Magnusson weight degenerates to
         # the match mask, leaving the plain GICP normal equations.
-        H, g, _sw, n_hit = pallas_kernels.ndt_accumulate_xla(e, M, p, matched, 0.0, 1.0)
+        H, g, _sw, n_hit = ndt_accumulate_xla(e, M, p, matched, 0.0, 1.0)
         n_inl = n_hit.astype(jnp.int32)
 
         delta = solve_damped(H, g, jnp.asarray(1e-6, H.dtype))

@@ -7,10 +7,10 @@ source=latest keyframe cloud, identity initial guess (`:315-318`). Its fitness s
 squared correspondence distance, PCL `getFitnessScore`) gates loop acceptance (`:328`) and
 scales the loop factor's noise (`:335-339`), so the same quantity is produced here.
 
-TPU design: correspondences come from the sorted-grid NN (one binary search + bounded gather
+Design: correspondences come from the sorted-grid NN (one binary search + bounded gather
 per point — no kd-tree), and each iteration applies the *closed-form* optimal rigid motion
 (weighted Umeyama/Kabsch via a 3x3 SVD) rather than an incremental gradient step: one
-cross-covariance einsum over all correspondences (MXU-shaped) and one tiny SVD per
+cross-covariance einsum over all correspondences and one tiny SVD per
 iteration. Unmatched source points contribute a capped penalty to fitness so a grossly
 misaligned pair cannot fake a good score just because few points matched.
 """
@@ -34,7 +34,7 @@ def _umeyama_step(src: jax.Array, dst: jax.Array, w: jax.Array):
     mu_d = jnp.sum(dst * w[:, None], axis=0) / wsum
     sc = src - mu_s
     dc = dst - mu_d
-    # Cross-covariance: single MXU-shaped contraction over the point axis.
+    # Cross-covariance: single contraction over the point axis.
     Sigma = jnp.einsum("ni,nj,n->ij", dc, sc, w) / wsum
     U, _, Vt = jnp.linalg.svd(Sigma)
     det = jnp.linalg.det(U @ Vt)

@@ -5,12 +5,12 @@ Replaces `pclomp::NormalDistributionsTransform` — the reference front end's de
 instantiated with DIRECT7 neighbor search, resolution/step/epsilon/max-iteration knobs at
 `lidar_scan_matcher/src/lidar_scan_matcher.cpp:55-72`).
 
-Design (TPU-first, not a port):
+Design (data-parallel, not a port):
   * The target voxel-Gaussian map is built once per submap by `ops.voxel.build_ndt_map`
     (on-chip sort + segment reduction) instead of ndt_omp's per-voxel STL containers.
   * Each iteration transforms all source points, gathers the DIRECT7 neighbor Gaussians
-    with one vectorized binary search, and accumulates 6x6 normal equations with einsums
-    that XLA fuses and maps onto the MXU — OpenMP's thread pool becomes pure data
+    with one dense-table gather, and accumulates 6x6 normal equations with einsums
+    that XLA fuses into one reduction — OpenMP's thread pool becomes pure data
     parallelism over the point axis.
   * Optimization is iteratively-reweighted Gauss-Newton on Magnusson's exponential score:
     weight w = -d1 d2 exp(-d2/2 * e^T S^-1 e) per (point, voxel) pair. This shares fixed
@@ -29,11 +29,11 @@ import jax.numpy as jnp
 
 from lidar_graph_slam_tpu.core import se3
 from lidar_graph_slam_tpu.core.config import NdtConfig
-from lidar_graph_slam_tpu.ops import pallas_kernels
 from lidar_graph_slam_tpu.ops.voxel import NdtVoxelMap, build_ndt_map, lookup_direct7
 from lidar_graph_slam_tpu.registration.base import (
     RegistrationResult,
     cap_step,
+    ndt_accumulate_xla,
     solve_damped,
 )
 
@@ -87,7 +87,7 @@ def ndt_align(
 
         K = n * 7
         p_rep = jnp.broadcast_to(p[:, None, :], (n, 7, 3))
-        H, g, _sum_w, n_hit = pallas_kernels.ndt_accumulate_xla(
+        H, g, _sum_w, n_hit = ndt_accumulate_xla(
             e.reshape(K, 3), icovs.reshape(K, 3, 3), p_rep.reshape(K, 3),
             valid.reshape(K), d2, w_scale,
         )

@@ -2,13 +2,24 @@
 
 The reference ships an rviz config displaying `/local_map`, `/filtered_points`,
 `/modified_map`, `/scan_matcher_path`, `/modified_path`, `/candidate_key_frame`
-(`lidar_graph_slam/rviz/rviz.config:80-281`). Headless TPU hosts get the same signal as
+(`lidar_graph_slam/rviz/rviz.config:80-281`). Headless hosts get the same signal as
 rendered PNGs: bird's-eye map + odometry vs optimized trajectories + loop-closure links.
+Rendering needs matplotlib, an optional dependency: callers check
+`matplotlib_available()` and skip the PNG without it.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def matplotlib_available() -> bool:
+    """Whether `render_run` can draw (matplotlib importable)."""
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
 
 
 def render_run(

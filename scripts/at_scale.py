@@ -1,14 +1,13 @@
-"""At-scale evidence run: 3-lap, 400-keyframe drift course on the real chip.
+"""At-scale run: the 3-lap, 400-frame drift course through the default pipeline.
 
-Reproduces (now as a committed script) the r04 artifact
-`docs/at_scale_3laps_400frames.{json,png}`: a sparse world where the NDT odometry
+Writes `docs/at_scale_3laps_400frames.{json,png}`: a sparse world where the NDT odometry
 genuinely drifts over ~730 m, so loop closure has real work to do — the regime
-`graph_based_slam` exists for. The r05 rerun exercises the CONCURRENT back end
-(async verification + threaded f64 solve) and records throughput next to accuracy:
-`steady_fps` (median frame wall) and `full_run_fps` (whole run incl. back-end work)
-show what the overlap buys at scale.
+`graph_based_slam` exists for. It runs the concurrent back end (async verification +
+threaded f64 solve) and records throughput next to accuracy: `steady_fps` (median frame
+wall) and `full_run_fps` (whole run incl. back-end work), with the device they ran on.
+The PNG needs matplotlib and is skipped without it.
 
-Usage: `timeout 3600 python scripts/at_scale.py` from the repo root (real TPU).
+Usage: `python scripts/at_scale.py` from the repo root, on a machine with a GPU.
 """
 
 import json
@@ -28,6 +27,9 @@ def main():
     from lidar_graph_slam_tpu.utils.jit_cache import enable_compilation_cache
 
     enable_compilation_cache()
+    import jax
+
+    dev = jax.devices()[0]
     n_frames = 400
     seq = SyntheticSequence(
         n_frames=n_frames, seed=1, extent=60.0, radius=35.0, max_points=131072,
@@ -53,7 +55,7 @@ def main():
 
     import bench
 
-    acc = bench._accuracy(res, gt_poses)  # the SAME metric block BENCH_r*.json uses
+    acc = bench._accuracy(res, gt_poses)  # the same metric block bench.py reports
     # Real attempts only: the loop_log also records the capacity-overflow sentinel
     # (candidate=-1), which is not an attempt.
     attempts = sum(1 for l in pipe.back.loop_log if l.get("candidate", -1) >= 0)
@@ -70,14 +72,20 @@ def main():
         "steady_fps": round(1.0 / max(float(np.median(walls)), 1e-9), 2),
         "full_run_fps": round((n_frames - 1) / wall, 2),
         "backend": "concurrent (async verify + threaded f64 solve)",
+        "device": {"platform": dev.platform, "kind": dev.device_kind},
     }
     print(json.dumps(out))
     doc = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "docs", "at_scale_3laps_400frames")
+    os.makedirs(os.path.dirname(doc), exist_ok=True)
     with open(doc + ".json", "w") as fh:
         json.dump(out, fh)
 
-    from lidar_graph_slam_tpu.utils.viz import render_run
+    from lidar_graph_slam_tpu.utils.viz import matplotlib_available, render_run
+
+    if not matplotlib_available():
+        print(f"{doc}.png skipped: matplotlib is not installed", file=sys.stderr)
+        return
 
     T0_inv = np.linalg.inv(gt_poses[0])
     gt = np.stack([(T0_inv @ p).astype(np.float32) for p in gt_poses])

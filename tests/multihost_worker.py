@@ -86,7 +86,7 @@ assert err_schur < 1e-2, f"schur step diverged across hosts: {err_schur}"
 print(f"proc {pid}: chain_err={err_chain:.2e} schur_err={err_schur:.2e}", flush=True)
 print("MULTIHOST_OK", flush=True)
 
-# 5) FULL SlamPipeline SPMD with the sharded keyframe store (VERDICT r03 item 6):
+# 5) FULL SlamPipeline SPMD with the sharded keyframe store:
 #    every process feeds the same scan stream; keyframe clouds shard round-robin per
 #    host; loop closure + map assembly cross the process boundary via the store's
 #    allgather. The trajectory must match a local-store (single-host) run exactly.

@@ -1,13 +1,10 @@
-"""GN inner-loop accumulation (`ops/pallas_kernels.ndt_accumulate_xla`) vs a numpy
-oracle. (The hand-written Pallas kernel this file originally covered was deleted in
-round 5 after losing its end-to-end A/B to the XLA path — module docstring there has
-the record; the XLA accumulation is now the single production implementation and
-keeps oracle coverage here.)"""
+"""GN inner-loop accumulation (`registration.base.ndt_accumulate_xla`) vs a float64
+numpy oracle of the analytic normal-equation blocks."""
 
 import numpy as np
 import jax.numpy as jnp
 
-from lidar_graph_slam_tpu.ops import pallas_kernels as pk
+from lidar_graph_slam_tpu.registration.base import ndt_accumulate_xla
 
 
 def make_inputs(rng, K=1024):
@@ -42,7 +39,7 @@ def _oracle(e, icovs, p, hit, d2, w_scale):
 def test_accumulate_matches_numpy_oracle(rng):
     e, icovs, p, hit = make_inputs(rng, K=512)
     d2, w_scale = 0.25, 1.05
-    H, g, sw, nh = pk.ndt_accumulate_xla(
+    H, g, sw, nh = ndt_accumulate_xla(
         jnp.asarray(e), jnp.asarray(icovs), jnp.asarray(p), jnp.asarray(hit),
         d2, w_scale)
     Ho, go, swo, nho = _oracle(e, icovs, p, hit, d2, w_scale)
@@ -55,7 +52,7 @@ def test_accumulate_matches_numpy_oracle(rng):
 
 def test_accumulate_all_miss(rng):
     e, icovs, p, hit = make_inputs(rng, K=256)
-    H, g, sw, nh = pk.ndt_accumulate_xla(
+    H, g, sw, nh = ndt_accumulate_xla(
         jnp.asarray(e), jnp.asarray(icovs), jnp.asarray(p),
         jnp.zeros(256, bool), 0.25, 1.0)
     assert float(nh) == 0.0
@@ -65,7 +62,7 @@ def test_accumulate_all_miss(rng):
 
 def test_accumulate_symmetry_psd(rng):
     e, icovs, p, hit = make_inputs(rng)
-    H, g, _, _ = pk.ndt_accumulate_xla(
+    H, g, _, _ = ndt_accumulate_xla(
         jnp.asarray(e), jnp.asarray(icovs), jnp.asarray(p), jnp.asarray(hit),
         0.25, 1.0)
     np.testing.assert_allclose(np.asarray(H), np.asarray(H).T, rtol=1e-4, atol=1e-3)

@@ -2,7 +2,7 @@
 
 Round 2 shipped dead knobs (`IcpConfig.max_correspondence_distance`,
 `euclidean_fitness_epsilon`, `GicpConfig.use_reciprocal`) that claimed reference parity
-without code behind them (VERDICT r02). This test makes that class of drift impossible:
+without code behind them. This test makes that class of drift impossible:
 each dataclass field in `core/config.py` must appear as an attribute access (`.name`) in
 package source outside config.py itself.
 """
@@ -39,5 +39,5 @@ def test_every_config_field_is_consumed():
     )
     assert not unconsumed, (
         f"config fields declared but never consumed outside config.py: {unconsumed} — "
-        "wire them up or delete them (VERDICT r02 item 5)"
+        "wire them up or delete them"
     )

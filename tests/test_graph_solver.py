@@ -158,8 +158,8 @@ def test_graph_cost_zero_when_consistent(rng):
 
 
 def test_blocked_tridiag_matches_scan(rng):
-    """The K >= 2048 blocked substructuring solve must agree with the sequential-scan
-    reference elimination (replaces the r03 serial fallback, VERDICT item 3)."""
+    """The blocked substructuring solve must agree with the sequential-scan reference
+    elimination at K = 2048."""
     K, M = 2048, 13
     D = rng.normal(size=(K, 6, 6)).astype(np.float32)
     D = np.einsum("kij,klj->kil", D, D) + 8 * np.eye(6, dtype=np.float32)
@@ -173,8 +173,8 @@ def test_blocked_tridiag_matches_scan(rng):
 
 
 def test_tridiag_dispatch_non_multiple_of_64(rng):
-    """K >= 2048 that is NOT a multiple of 64 (user-set capacity, e.g. 3000) must pad
-    into the blocked solve rather than assert at trace time (ADVICE r04)."""
+    """A K that is neither a power of two nor a multiple of 64 (user-set capacity, e.g.
+    3000) must pad inside the dispatched solve rather than assert at trace time."""
     K, M = 2050, 5
     D = rng.normal(size=(K, 6, 6)).astype(np.float32)
     D = np.einsum("kij,klj->kil", D, D) + 8 * np.eye(6, dtype=np.float32)
@@ -186,7 +186,8 @@ def test_tridiag_dispatch_non_multiple_of_64(rng):
 
 
 def test_optimize_non_power_of_two_capacity(rng):
-    """optimize() on a 2080-capacity graph (>= 2048, % 64 != 0) traces and solves."""
+    """optimize() on a 2080-capacity graph (not a power of two, % 64 != 0) traces and
+    solves."""
     poses = random_walk(rng, 6)
     g = chain_graph(poses, K=2080)
     out = solver.optimize(g, max_iterations=3)

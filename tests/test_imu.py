@@ -59,7 +59,7 @@ def test_odometry_with_imu_stamps():
 
 @pytest.mark.slow
 def test_fused_driver_imu_matches_classic():
-    """VERDICT r02 item 6: IMU must be reachable in the DEFAULT (fused) driver.
+    """IMU must be reachable in the DEFAULT (fused) driver.
     Feeding the same gyro stream to both drivers must produce matching trajectories."""
     from dataclasses import replace
 

@@ -6,8 +6,7 @@ sequence is written to disk in the exact KITTI odometry layout (velodyne
 `calib.txt` Tr) and the CLI runs `--dataset kitti` over it — driving
 `io/kitti.py`, the native `.bin` reader + read-ahead prefetcher
 (`native/lgs_io.cpp`), the full pipeline, and the trajectory/map/metrics
-exporters. Proves the real-data path before real data ever shows up
-(VERDICT r04 item 8).
+exporters. Proves the real-data path before real data ever shows up.
 """
 
 import json

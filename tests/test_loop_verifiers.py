@@ -112,7 +112,7 @@ def test_global_init_recovers_large_drift():
 def test_async_backend_matches_sync():
     """The concurrent back end (dispatch -> lagged consume -> threaded solve) must
     accept the same loop and land on the same optimized poses as the synchronous
-    `try_close_loop` (same stages, overlapped — VERDICT r04 item 2)."""
+    `try_close_loop` (same stages, overlapped)."""
     import time
 
     back_s, _ = build_loop_backend("ICP")

@@ -50,7 +50,7 @@ def test_batch_odometry_tracks_all_sequences():
 def test_batch_slam_four_sequences_with_loops():
     """configs[3] end-to-end: 4 sequences through batched odometry + per-sequence graph
     back ends in ONE call — 4 optimized trajectories, loop closures firing, optimized
-    ATE no worse than raw odometry (VERDICT r03 item 7)."""
+    ATE no worse than raw odometry."""
     from lidar_graph_slam_tpu.core.config import CapacityConfig, GraphSlamConfig
 
     B, F, N = 4, 90, 4096

@@ -1,7 +1,7 @@
 """Multi-host scaffolding exercised WITHOUT hardware: two local processes, two virtual
 CPU devices each, Gloo collectives — `jax.distributed.initialize` + a 4-device global
 mesh + cross-process submap allgather + the distributed pose-graph solves running across
-the process boundary (BASELINE.json configs[4]'s code path; VERDICT r02 item 4 /
+the process boundary (BASELINE.json configs[4]'s code path;
 SURVEY.md §5.8)."""
 
 import os

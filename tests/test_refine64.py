@@ -166,7 +166,7 @@ def test_solve_incremental_empty_graph():
 
 
 def test_so3_log_matches_scipy_all_angles():
-    """The numpy-only quaternion-route so3_log (scipy dependency removed, ADVICE r04)
+    """The numpy-only quaternion-route so3_log (no scipy dependency)
     must match scipy's rotvec at every angle regime, including near pi."""
     pytest.importorskip("scipy")
     from scipy.spatial.transform import Rotation

@@ -1,13 +1,15 @@
-"""Offline visualization + compile-cache helpers — smoke coverage for the two
-utility modules nothing else exercises (`utils/viz.py` is the rviz stand-in,
-`rviz/rviz.config:80-281` in the reference; `utils/jit_cache.py` is accelerator-only
-by design)."""
+"""Offline visualization + compile-cache helpers — coverage for the two utility
+modules nothing else exercises (`utils/viz.py` is the rviz stand-in,
+`rviz/rviz.config:80-281` in the reference; `utils/jit_cache.py` configures the
+persistent cache of the accelerator entry points)."""
 
 import os
 
+import jax
 import numpy as np
+import pytest
 
-from lidar_graph_slam_tpu.utils import viz
+from lidar_graph_slam_tpu.utils import jit_cache, viz
 from lidar_graph_slam_tpu.utils.jit_cache import enable_compilation_cache
 
 
@@ -40,7 +42,37 @@ def test_render_run_handles_empty_inputs(tmp_path):
 
 
 def test_compilation_cache_refuses_cpu():
-    # Tests always run on the CPU backend (conftest); the cache must stay off there —
-    # cached CPU executables from a different compile host can be silently wrong
+    # Tests always run on the CPU backend (conftest); the cache stays off there — CPU
+    # executables are specific to the compiling host's instruction set, and the
+    # in-checkout cache directory travels with copies of the checkout
     # (jit_cache.py module docstring).
     assert enable_compilation_cache() is False
+
+
+@pytest.fixture
+def config_updates(monkeypatch):
+    """Record jax.config.update calls instead of applying them."""
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda name, value: calls.append((name, value)))
+    return calls
+
+
+def test_compilation_cache_defers_to_env_dir(monkeypatch, config_updates, tmp_path):
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert enable_compilation_cache(platform="gpu") is True
+    assert not [c for c in config_updates if c[0] == "jax_compilation_cache_dir"]
+
+
+def test_compilation_cache_uses_one_fixed_in_checkout_dir(monkeypatch, config_updates):
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    assert enable_compilation_cache(platform="gpu") is True
+    assert enable_compilation_cache(platform="gpu") is True
+    dirs = [v for n, v in config_updates if n == "jax_compilation_cache_dir"]
+    assert dirs == [jit_cache.CACHE_DIR, jit_cache.CACHE_DIR]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert os.path.dirname(jit_cache.CACHE_DIR) == repo
+    # .gitignore lists it: the cache never ends up in a commit.
+    rel = os.path.relpath(jit_cache.CACHE_DIR, repo)
+    with open(os.path.join(repo, ".gitignore")) as f:
+        patterns = {line.strip().strip("/") for line in f}
+    assert rel in patterns, f"{rel} is not in .gitignore"

@@ -160,7 +160,7 @@ def test_ndt_pyramid_matches_direct_builds(rng):
 
 
 def test_eigh3x3_equal_diagonal():
-    """ADVICE r03 (high): tau = 0 (equal diagonal entries with nonzero coupling) must
+    """tau = 0 (equal diagonal entries with nonzero coupling) must
     produce the exact 45-degree Jacobi rotation — jnp.sign(0) = 0 silently discarded
     the off-diagonal mass and returned wrong eigenvalues for symmetric/axis-diagonal
     point arrangements."""
@@ -180,3 +180,25 @@ def test_eigh3x3_equal_diagonal():
         np.testing.assert_allclose(np.sort(w[i]), w_ref, atol=1e-5)
         recon = (V[i] * w[i][None, :]) @ V[i].T
         np.testing.assert_allclose(recon, As[i], atol=1e-5)
+
+
+def test_eigh3x3_matches_linalg_eigh(rng):
+    """`_eigh3x3` against `jnp.linalg.eigh` on a batch of random symmetric PSD matrices
+    (including equal-diagonal and diagonal ones): same ascending eigenvalues, and the
+    eigenvector columns reconstruct the input and are orthonormal."""
+    from lidar_graph_slam_tpu.ops.voxel import _eigh3x3
+
+    A = rng.normal(size=(256, 3, 3)).astype(np.float32)
+    As = np.einsum("kij,klj->kil", A, A)
+    As[0] = [[1.0, 0.5, 0.0], [0.5, 1.0, 0.0], [0.0, 0.0, 2.0]]   # tau = 0 case
+    As[1] = np.diag([3.0, 1.0, 2.0])                             # already diagonal
+    w, V = _eigh3x3(jnp.asarray(As))
+    w_ref, _ = jnp.linalg.eigh(jnp.asarray(As))
+    w, V, w_ref = np.asarray(w), np.asarray(V), np.asarray(w_ref)
+    scale = np.abs(w_ref).max(axis=1, keepdims=True)
+    np.testing.assert_allclose(w / scale, w_ref / scale, atol=2e-6)
+    assert np.all(np.diff(w, axis=1) >= 0)
+    recon = np.einsum("kij,kj,klj->kil", V, w, V)
+    np.testing.assert_allclose(recon, As, atol=2e-5 * scale.max())
+    np.testing.assert_allclose(np.einsum("kji,kjl->kil", V, V),
+                               np.broadcast_to(np.eye(3), V.shape), atol=1e-5)
