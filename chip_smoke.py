@@ -18,7 +18,7 @@ code 2, no result line). On one GPU it runs, in one process:
      backend, and the device f32 LM vs the host f64 tier on the K=4096/L=64 bench graph;
   3. the CLI (`pipeline.cli.main`) on 100 synthetic frames, checking its output files;
   4. the default `SlamPipeline` on a seeded urban-canyon drive (64 beams x 2,048
-     columns, ~70-90k returns a scan) over more than one lap, so loop closure runs,
+     columns, ~60-70k returns a scan) over more than one lap, so loop closure runs,
      then `save_map`; its first frames are compared with the same frames on the CPU.
 
 Any failed phase makes the exit code 1. The last line of a passing run is
@@ -41,16 +41,20 @@ import numpy as np
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # The real-load course: the urban-canyon world of bench.py's dense cell, driven 1.12
-# laps of a 35 m circle (246 m; ~1.38 m a frame) so the 100 m loop gate opens.
+# laps of a 35 m circle (246 m; ~1.38 m a frame) so the 100 m loop gate opens. Its
+# buildings stand off an 8 m street along the circle: a course that drives through box
+# faces loses track there, and whether its end then lands inside the 15 m loop-search
+# gate becomes a coin toss between runs.
 COURSE_FRAMES = 180
 COURSE_LAPS = 1.12
-# Keyframe ATE gate on that course, set from the same course on the CPU backend: keyframe
-# ATE 14.47 m, odometry 14.44 m (and 14.48 m on the GPU). The default front end loses
-# track between frames ~78 and ~96, where the circle passes through the box faces of
-# this world, on both backends; both loop attempts are then rejected. The gate catches a
-# run that diverges further or goes non-finite; the first frames are compared with the
-# CPU backend pose by pose below.
-COURSE_ATE_BOUND_M = 20.0
+COURSE_RADIUS_M = 35.0
+COURSE_ROAD_HALF_WIDTH_M = 4.0
+# Keyframe ATE gate on that course, set from the same course on the CPU backend:
+# keyframe ATE 0.086 m, odometry 0.107 m, 4 loop attempts from frame 149 on, all
+# accepted. A front end that loses track on this course ends metres off; 0.5 m leaves
+# room for another reduction order and for loop decisions that differ at the 0.3
+# fitness gate. The first frames are compared with the CPU backend pose by pose below.
+COURSE_ATE_BOUND_M = 0.5
 # Frames of the course re-run on the CPU backend and compared pose by pose.
 CPU_PARITY_FRAMES = 10
 
@@ -114,13 +118,15 @@ def _pose_diff(a, b):
 
 def canyon_course(n_frames: int = COURSE_FRAMES, laps: float = COURSE_LAPS, seed: int = 2,
                   n_azimuth: int = 2048, n_elevation: int = 64, max_points: int = 131072):
-    """(scans, gt_poses): the urban-canyon world of bench.py's dense cell, on a loop."""
+    """(scans, gt_poses): the urban-canyon world of bench.py's dense cell, with its
+    buildings kept off the ring road the loop drives."""
     from lidar_graph_slam_tpu.io.synthetic import make_loop_trajectory, make_world, simulate_scan
 
     rng = np.random.default_rng(seed)
     world = make_world(rng, extent=60.0, density=60.0, wall_height=12.0,
-                       box_height=(6.0, 25.0), n_boxes=60)
-    poses = make_loop_trajectory(n_frames, radius=35.0, laps=laps)
+                       box_height=(6.0, 25.0), n_boxes=60,
+                       road=(COURSE_RADIUS_M, COURSE_ROAD_HALF_WIDTH_M))
+    poses = make_loop_trajectory(n_frames, radius=COURSE_RADIUS_M, laps=laps)
     scans = [simulate_scan(world, p, rng, max_points=max_points, n_azimuth=n_azimuth,
                            n_elevation=n_elevation) for p in poses]
     return scans, poses
@@ -406,6 +412,10 @@ def phase_course(scans, gts, card: str, cfg=None):
     steady = walls[1:]
     print(f"  frames {res.odometry_poses.shape[0]}, keyframes {res.keyframe_poses.shape[0]}, "
           f"loop attempts {attempts}, loops accepted {res.num_loop_closures}")
+    print("  loop attempts (frame of the latest keyframe, candidate, fitness, accepted): "
+          + ", ".join(f"({int(res.keyframe_frame_indices[r['latest']])}, {r['candidate']}, "
+                      f"{r['fitness']:.3f}, {r['accepted']})"
+                      for r in res.loop_log if r.get("candidate", -1) >= 0))
     print(f"  mean raw points {np.mean([s.shape[0] for s in scans]):.0f}")
     err = np.linalg.norm(res.odometry_poses[:, :3, 3]
                          - relative_to_first(gts)[:, :3, 3], axis=1)
@@ -417,6 +427,9 @@ def phase_course(scans, gts, card: str, cfg=None):
     print(f"  wall per frame (frames 2..{len(walls)}): p50 {1e3 * np.percentile(steady, 50):.2f}"
           f" ms, p99 {1e3 * np.percentile(steady, 99):.2f} ms, max "
           f"{1e3 * steady.max():.2f} ms; frame 1 (compile) {1e3 * walls[0]:.0f} ms  [{card}]")
+    slow = np.argsort(walls[1:])[::-1][:6] + 1
+    print("  slowest frames (index: ms): "
+          + ", ".join(f"{i}: {1e3 * walls[i]:.1f}" for i in sorted(slow)))
     require("all poses finite", bool(np.isfinite(res.odometry_poses).all()
                                      and np.isfinite(res.keyframe_poses).all()))
     require("at least one loop attempt", attempts >= 1, f"({attempts})")

@@ -79,8 +79,23 @@ def compact(points: jax.Array, mask: jax.Array, capacity: int) -> tuple[jax.Arra
     return new_points, new_mask
 
 
-def concat_clouds(points_list, masks_list, capacity: int) -> tuple[jax.Array, jax.Array]:
-    """Concatenate fixed-capacity clouds then compact to `capacity` rows."""
-    pts = jnp.concatenate(points_list, axis=0)
-    msk = jnp.concatenate(masks_list, axis=0)
-    return compact(pts, msk, capacity)
+def compact_evenly(points: jax.Array, mask: jax.Array,
+                   capacity: int) -> tuple[jax.Array, jax.Array]:
+    """`compact`, except that when more than `capacity` rows are valid it keeps
+    `capacity` of them evenly spaced over the valid rows' order, not the first
+    `capacity`. Filter outputs come in voxel-key order, whose head is one spatial slab of
+    the scan; thinning across the whole order keeps the scan's full extent."""
+    if capacity >= points.shape[0]:
+        return compact(points, mask, capacity)
+    order = jnp.argsort(jnp.logical_not(mask), stable=True)
+    n = jnp.sum(mask.astype(jnp.int32))
+    j = jnp.arange(capacity, dtype=jnp.int32)
+    # pick_j = floor(j * n / capacity) without the int32 overflow of j * n: the whole
+    # part q * j is exact, and float32 rounding of the monotone fractional part can
+    # never make two picks equal, since each step adds at least q >= 1.
+    q, rem = n // capacity, n % capacity
+    frac = jnp.floor(j.astype(jnp.float32) * (rem.astype(jnp.float32) / capacity))
+    pick = jnp.where(n > capacity, j * q + frac.astype(jnp.int32), j)
+    rows = order[pick]
+    new_mask = mask[rows]
+    return pad_points(points[rows], new_mask), new_mask

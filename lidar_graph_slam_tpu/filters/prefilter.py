@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 
 from lidar_graph_slam_tpu.core.config import PrefilterConfig
-from lidar_graph_slam_tpu.core.pointcloud import PointCloud, compact, pad_points
+from lidar_graph_slam_tpu.core.pointcloud import PointCloud, compact_evenly, pad_points
 from lidar_graph_slam_tpu.ops import neighbors, voxel
 
 
@@ -113,7 +113,7 @@ def make_prefilter(cfg: PrefilterConfig, capacity_out: int, voxel_capacity: int)
             msk = random_sample_mask(pts, msk, cfg.random_sample_num, jax.random.PRNGKey(0))
             pts = pad_points(pts, msk)
 
-        out_pts, out_mask = compact(pts, msk, capacity_out)
+        out_pts, out_mask = compact_evenly(pts, msk, capacity_out)
         return PointCloud(points=out_pts, mask=out_mask)
 
     return prefilter

@@ -14,9 +14,21 @@ from __future__ import annotations
 import numpy as np
 
 
+def _off_road(road, cx: float, cy: float, sx: float = 0.0, sy: float = 0.0) -> bool:
+    """True if the axis-aligned footprint [cx +- sx] x [cy +- sy] stays clear of the ring
+    road `road = (radius, half_width)` centred on the origin (always True without one)."""
+    if road is None:
+        return True
+    radius, half_width = road
+    near = np.hypot(max(abs(cx) - sx, 0.0), max(abs(cy) - sy, 0.0))
+    far = np.hypot(abs(cx) + sx, abs(cy) + sy)
+    return bool(near > radius + half_width or far < radius - half_width)
+
+
 def make_world(
     rng: np.random.Generator, extent: float = 60.0, density: float = 4.0,
     wall_height: float = 3.0, box_height: tuple = (2.0, 6.0), n_boxes: int = 30,
+    road: tuple | None = None,
 ) -> np.ndarray:
     """Structured world point set [M, 3]: ground + perimeter walls + random boxes/pillars.
 
@@ -24,7 +36,11 @@ def make_world(
     give an open suburban course; tall values (urban canyon) fill the upward half of a
     spinning lidar's elevation fan, which is what pushes per-scan return counts toward
     the HDL-64's ~100k+ (open scenes cap near ~60k occupied beams regardless of point
-    density because up-beams see sky)."""
+    density because up-beams see sky).
+
+    `road = (radius, half_width)` keeps boxes and pillars off the ring road that
+    `make_loop_trajectory(radius=radius)` drives (redrawing the ones that would stand on
+    it), so the sensor never drives through a building. None places them anywhere."""
     pts = []
     n_ground = int(extent * extent * density * 0.25)
     g = rng.uniform(-extent, extent, size=(n_ground, 2))
@@ -43,6 +59,8 @@ def make_world(
     for _ in range(n_boxes):
         cx, cy = rng.uniform(-extent * 0.8, extent * 0.8, 2)
         sx, sy = rng.uniform(2.0, 8.0, 2)
+        while not _off_road(road, cx, cy, sx, sy):
+            cx, cy = rng.uniform(-extent * 0.8, extent * 0.8, 2)
         h = rng.uniform(*box_height)
         n_face = int(density * (sx + sy) * h)  # ~constant per-area density on the 4 faces
         for axis, sign in ((0, 1), (0, -1), (1, 1), (1, -1)):
@@ -56,6 +74,8 @@ def make_world(
     # Pillars (vertical features).
     for _ in range(40):
         cx, cy = rng.uniform(-extent * 0.9, extent * 0.9, 2)
+        while not _off_road(road, cx, cy):
+            cx, cy = rng.uniform(-extent * 0.9, extent * 0.9, 2)
         n_p = int(density * 10)
         p = np.stack(
             [

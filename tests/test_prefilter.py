@@ -86,3 +86,43 @@ def test_prefilter_deterministic(rng):
     a = fn(cloud.points, cloud.mask)
     b = fn(cloud.points, cloud.mask)
     np.testing.assert_array_equal(np.asarray(a.points), np.asarray(b.points))
+
+
+def test_compact_evenly_matches_compact_under_capacity(rng):
+    from lidar_graph_slam_tpu.core.pointcloud import compact, compact_evenly
+
+    pts = jnp.asarray(rng.normal(size=(64, 3)).astype(np.float32))
+    mask = jnp.asarray(rng.uniform(size=64) < 0.3)
+    for got, want in zip(compact_evenly(pts, mask, 32), compact(pts, mask, 32)):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+
+
+def test_compact_evenly_spans_all_valid_rows_over_capacity(rng):
+    from lidar_graph_slam_tpu.core.pointcloud import compact_evenly
+
+    # 100,003 valid rows into 32,768: j * n overflows int32, so the picks must not.
+    n_rows, n_valid, cap = 131072, 100003, 32768
+    mask = np.zeros(n_rows, bool)
+    mask[np.sort(rng.choice(n_rows, n_valid, replace=False))] = True
+    x = np.arange(n_rows, dtype=np.float32)
+    pts = np.stack([x, np.zeros_like(x), np.zeros_like(x)], axis=1)
+    out_pts, out_mask = compact_evenly(jnp.asarray(pts), jnp.asarray(mask), cap)
+    out_mask = np.asarray(out_mask)
+    assert out_mask.all()
+    kept = np.asarray(out_pts)[:, 0].astype(np.int64)
+    rank = np.cumsum(mask) - 1  # each kept row's position among the valid rows
+    r = rank[kept]
+    assert mask[kept].all() and np.all(np.diff(r) > 0)  # distinct, in order
+    assert r[0] == 0 and r[-1] >= n_valid - 4            # head to tail of the valid rows
+    assert np.diff(r).max() <= -(-n_valid // cap)        # no gap beyond the even stride
+
+
+def test_prefilter_over_capacity_keeps_the_whole_scan(rng):
+    scan = make_scan(rng, 6000)
+    cloud = PointCloud.from_array(scan, capacity=8192)
+    cfg = PrefilterConfig(leaf_size=0.05, use_outlier_filter=False)
+    fn = prefilter.make_prefilter(cfg, capacity_out=1024, voxel_capacity=8192)
+    got = fn(cloud.points, cloud.mask).to_array()
+    assert got.shape[0] == 1024
+    # Voxel-key order runs along x: a head cut would keep only the x < 0 side.
+    assert (got[:, 0] > 10.0).sum() > 100 and (got[:, 0] < -10.0).sum() > 100
